@@ -5,8 +5,8 @@ import struct
 
 import numpy as np
 
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.utils import artifacts
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.utils import artifacts
 
 
 def _read_records(path):

@@ -11,13 +11,13 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from rslmtoasa_tpu.models.conductivity import (
+from rslmtoasa.models.conductivity import (
     ConductivityCalculation,
     build_velocity_operators,
     spin_current,
 )
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.ops.kubo import kubo_moments
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.ops.kubo import kubo_moments
 
 
 def _dense_from_ell(blocks, iz, cols, kk):
@@ -189,9 +189,9 @@ def test_conductivity_pipeline_outputs(tmp_path):
 
 
 def test_kubo_realified_parity():
-    """The realified 36x36 Kubo engine (the TPU path) reproduces the
+    """The Kubo engine on realified 36x36 real blocks reproduces the
     complex moments exactly."""
-    from rslmtoasa_tpu.ops.block_lanczos import (
+    from rslmtoasa.ops.block_lanczos import (
         realify_blocks,
         unrealify_blocks,
     )
@@ -221,11 +221,11 @@ def test_kubo_realified_parity():
 
 
 def test_kubo_f32_production_cond_ll():
-    """The realified-f32 TPU Kubo engine at the PRODUCTION moment count
-    (cond_ll = lld = 100, the fccPt reference case patch) stays inside
-    the reference 1e-6 parity gate relative to the moment scale —
-    the accuracy claim behind models/conductivity.py:243-259."""
-    from rslmtoasa_tpu.ops.block_lanczos import (
+    """The Kubo engine is dtype-generic: on realified float32 blocks at
+    the production moment count (cond_ll = lld = 100, the fccPt
+    reference case patch) it stays inside the reference 1e-6 parity
+    gate relative to the moment scale."""
+    from rslmtoasa.ops.block_lanczos import (
         realify_blocks,
         unrealify_blocks,
     )
@@ -268,7 +268,7 @@ def test_kubo_random_vec_moments_match_dense():
     (cond_calctype='random_vec', recursion.f90:1120-1143): the sampled
     moment block matches a brute-force dense evaluation with the same
     seeded phases, and the runner writes totals but no per-type files."""
-    from rslmtoasa_tpu.models.conductivity import ConductivityCalculation
+    from rslmtoasa.models.conductivity import ConductivityCalculation
 
     sys_ = build_synthetic_bcc(rc=9.0, lld=4, nsp=2)
     sys_.cfg.control.cond_calctype = "random_vec"
@@ -332,7 +332,7 @@ def test_conductivity_random_vec_outputs(tmp_path):
 def test_kubo_operator_types():
     """All Kubo slot operator types build finite, correctly-structured
     tables; anticommutator/commutator identities hold block-wise."""
-    from rslmtoasa_tpu.models.conductivity import (
+    from rslmtoasa.models.conductivity import (
         S_Z,
         _l_op18,
         build_kubo_operator,

@@ -1,14 +1,13 @@
 """Unit tests for the df64 (double-float + exact-chunk GEMM) module.
 
 These validate the error-free transforms and the Ozaki-style chunked GEMM
-against f64 references on CPU; the same code path runs on TPU where f64
-is emulated ~50x slower.
+against f64 references on CPU.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from rslmtoasa_tpu.ops import df64
+from rslmtoasa.ops import df64
 
 
 def test_two_sum_exact():

@@ -7,10 +7,10 @@ import tempfile
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.config import JobConfig
-from rslmtoasa_tpu.models.bulk import BulkSystem
-from rslmtoasa_tpu.models.exchange import ExchangeCalculation
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
+from rslmtoasa.config import JobConfig
+from rslmtoasa.models.bulk import BulkSystem
+from rslmtoasa.models.exchange import ExchangeCalculation
+from rslmtoasa.models.presets import build_synthetic_bcc
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +64,7 @@ def test_twoindex_cross_terms_vanish(exchange_run):
     tr[d G^{c,0}_ij d G^{c,1}_ji] ~ 0 (that is the symmetry the
     decomposition exploits; a wrong reflection table breaks this)."""
     wd, xc = exchange_run
-    from rslmtoasa_tpu.physics.energy_mesh import EnergyMesh
+    from rslmtoasa.physics.energy_mesh import EnergyMesh
 
     emesh = EnergyMesh.build(xc.cfg.energy)
     cl = xc.sys.cluster
@@ -129,9 +129,9 @@ def _two_level_setup(tmp_path, monkeypatch, eta=0.05, e0=-0.1):
     downstream quantity then has a closed form (the Kambersky two-level
     limit), making damping/inertia true value tests instead of ratio
     windows."""
-    import rslmtoasa_tpu.models.exchange as exm
-    from rslmtoasa_tpu.models.exchange import ExchangeCalculation
-    from rslmtoasa_tpu.physics.energy_mesh import EnergyMesh
+    import rslmtoasa.models.exchange as exm
+    from rslmtoasa.models.exchange import ExchangeCalculation
+    from rslmtoasa.physics.energy_mesh import EnergyMesh
 
     sys_ = build_synthetic_bcc(rc=8.0, ndim=500, lld=4, nsp=2)
     xc = ExchangeCalculation(sys_, np.array([[1, 2]]), workdir=str(tmp_path))

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.geometry import (
+from rslmtoasa.geometry import (
     bravais_cluster,
     neighbor_map,
     primitive_cell,
@@ -81,7 +81,7 @@ def test_pbc_wrapped_full_coordination():
     canonical set (minimum-image wrap)."""
     import numpy as np
 
-    from rslmtoasa_tpu.geometry import (
+    from rslmtoasa.geometry import (
         bravais_cluster,
         neighbor_map,
         primitive_cell,
@@ -105,18 +105,18 @@ def test_pbc_wrapped_translational_invariance():
     import jax.numpy as jnp
     import numpy as np
 
-    from rslmtoasa_tpu.geometry import (
+    from rslmtoasa.geometry import (
         bravais_cluster,
         neighbor_map,
         primitive_cell,
         sbar_for_cluster,
     )
-    from rslmtoasa_tpu.models.presets import synthetic_bcc_atom
-    from rslmtoasa_tpu.ops.lanczos import (
+    from rslmtoasa.models.presets import synthetic_bcc_atom
+    from rslmtoasa.ops.lanczos import (
         lanczos_coefficients,
         scalar_start_vectors,
     )
-    from rslmtoasa_tpu.physics.hamiltonian import build_bulkham
+    from rslmtoasa.physics.hamiltonian import build_bulkham
 
     cell = primitive_cell("bcc")
     cl = bravais_cluster(cell, alat=2.8612, rc=50.0, wav=1.4088,

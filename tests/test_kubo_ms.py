@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.models.conductivity import build_velocity_operators
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.ops.kubo import kubo_moments
-from rslmtoasa_tpu.ops.kubo_ms import MSKubo
-from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
+from rslmtoasa.models.conductivity import build_velocity_operators
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.ops.kubo import kubo_moments
+from rslmtoasa.ops.kubo_ms import MSKubo
+from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
 
 
 def _setup(hoh):

@@ -6,14 +6,14 @@ tridiagonal coefficients after a full lld=16 chain."""
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.ops import df64
-from rslmtoasa_tpu.ops.lanczos import (
+from rslmtoasa.ops import df64
+from rslmtoasa.ops.lanczos import (
     lanczos_coefficients_split,
     scalar_start_vectors,
     split_complex,
     split_vector,
 )
-from rslmtoasa_tpu.ops.lanczos_df64 import (
+from rslmtoasa.ops.lanczos_df64 import (
     lanczos_coefficients_df64,
     pack_ham_df64,
 )
@@ -21,7 +21,7 @@ from rslmtoasa_tpu.ops.lanczos_df64 import (
 
 @pytest.fixture(scope="module")
 def bcc_system():
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
+    from rslmtoasa.models.presets import build_synthetic_bcc
 
     return build_synthetic_bcc(rc=12.0, ndim=2000, lld=16)
 

@@ -2,7 +2,7 @@
 
 The conftest forces an 8-virtual-device CPU platform, so the dispatch
 layer (parallel/dispatch.py) chain-shards the production engines exactly
-as it would on an 8-chip TPU slice.  A full SCF step and an exchange pair
+as it would on eight GPUs.  A full SCF step and an exchange pair
 batch must match the single-device result at 1e-12 (the reference's
 rank-count-independence property: its collectives are allreduce-sums,
 tests/run_binary.sh runs the same cases at 1, 2 and 4 ranks).
@@ -11,8 +11,8 @@ tests/run_binary.sh runs the same cases at 1, 2 and 4 ranks).
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.parallel import dispatch
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.parallel import dispatch
 
 
 @pytest.fixture
@@ -43,7 +43,7 @@ def test_run_block_mesh_matches_single(mesh_toggle):
 
 
 def test_run_chebyshev_mesh_matches_single(mesh_toggle):
-    from rslmtoasa_tpu.physics.energy_mesh import EnergyMesh
+    from rslmtoasa.physics.energy_mesh import EnergyMesh
 
     sys_ = build_synthetic_bcc(rc=8.0, ndim=2000, lld=6, nsp=2)
     sys_.cfg.control.recur = "chebyshev"
@@ -62,8 +62,8 @@ def test_run_chebyshev_mesh_matches_single(mesh_toggle):
 
 def test_exchange_pairs_mesh_matches_single(mesh_toggle):
     """The njij pair partition (calculation.f90:863) as chain sharding."""
-    from rslmtoasa_tpu.models.exchange import pair_start_vectors
-    from rslmtoasa_tpu.parallel.dispatch import block_lanczos_auto
+    from rslmtoasa.models.exchange import pair_start_vectors
+    from rslmtoasa.parallel.dispatch import block_lanczos_auto
 
     sys_ = build_synthetic_bcc(rc=8.0, ndim=2000, lld=6, nsp=2)
     hb = sys_.ham
@@ -83,7 +83,7 @@ def test_lanczos_rowshard_hbm_route(mesh_toggle, monkeypatch):
     """The HBM-threshold row-sharding route (dispatch._rowshard_wanted):
     with a tiny budget the scalar dispatch runs the ppermute-halo
     row-sharded engine and matches the replicated chain-sharded result."""
-    from rslmtoasa_tpu.ops.lanczos import scalar_start_vectors
+    from rslmtoasa.ops.lanczos import scalar_start_vectors
 
     sys_ = build_synthetic_bcc(rc=8.0, ndim=2000, lld=6)
     hb = sys_.ham

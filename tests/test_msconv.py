@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.models.presets import build_synthetic_b2, build_synthetic_bcc
-from rslmtoasa_tpu.ops.block_lanczos import block_lanczos, block_start_vectors
-from rslmtoasa_tpu.ops.chebyshev import chebyshev_moments
-from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
+from rslmtoasa.models.presets import build_synthetic_b2, build_synthetic_bcc
+from rslmtoasa.ops.block_lanczos import block_lanczos, block_start_vectors
+from rslmtoasa.ops.chebyshev import chebyshev_moments
+from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
 
 
 def _setup(builder, hoh, **kw):
@@ -116,8 +116,8 @@ def test_ms_surface_layered_parity(reference_dir):
     import shutil
     import tempfile
 
-    from rslmtoasa_tpu.config import JobConfig
-    from rslmtoasa_tpu.models.bulk import BulkSystem
+    from rslmtoasa.config import JobConfig
+    from rslmtoasa.models.bulk import BulkSystem
 
     src = str(reference_dir / "tests/scf/cases/surface/fccCu001")
     wd = tempfile.mkdtemp(prefix="rslmto_surf_")
@@ -165,8 +165,8 @@ def test_ms_impurity_local_parity(reference_dir):
     import shutil
     import tempfile
 
-    from rslmtoasa_tpu.config import JobConfig
-    from rslmtoasa_tpu.models.bulk import BulkSystem
+    from rslmtoasa.config import JobConfig
+    from rslmtoasa.models.bulk import BulkSystem
 
     src = str(reference_dir / "tests/scf/cases/impurity/B2FeCo")
     wd = tempfile.mkdtemp(prefix="rslmto_imp_")
@@ -217,8 +217,8 @@ def test_ms_staging_with_corrections(reference_dir):
     import shutil
     import tempfile
 
-    from rslmtoasa_tpu.config import JobConfig
-    from rslmtoasa_tpu.models.bulk import BulkSystem
+    from rslmtoasa.config import JobConfig
+    from rslmtoasa.models.bulk import BulkSystem
 
     src = str(reference_dir / "tests/scf/cases/impurity/B2FeCo")
     wd = tempfile.mkdtemp(prefix="rslmto_impstage_")

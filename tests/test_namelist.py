@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.utils.namelist import parse_namelists
-from rslmtoasa_tpu.config import JobConfig
+from rslmtoasa.utils.namelist import parse_namelists
+from rslmtoasa.config import JobConfig
 
 
 def test_basic_groups():
@@ -70,7 +70,7 @@ def test_regression_input(reference_dir):
 
 
 def test_element_file(reference_dir):
-    from rslmtoasa_tpu.atoms.potential import SymbolicAtom
+    from rslmtoasa.atoms.potential import SymbolicAtom
 
     at = SymbolicAtom.from_file(
         "Fe", str(reference_dir / "tests/regression/bccFe_lanczos")

@@ -7,9 +7,9 @@ ee[t, m>0] -> sph2cart(ee), ee[t, 0] -> sph2cart(ee_onsite + lsham).
 
 import numpy as np
 
-from rslmtoasa_tpu.models.paoflow import export_rs2pao, import_paoflow
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.physics.harmonics import sph2cart
+from rslmtoasa.models.paoflow import export_rs2pao, import_paoflow
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.physics.harmonics import sph2cart
 
 
 def _cart(blk):

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.config import JobConfig
-from rslmtoasa_tpu.models.bulk import BulkSystem
-from rslmtoasa_tpu.ops.lanczos import lanczos_coefficients, scalar_start_vectors
-from rslmtoasa_tpu.ops.ldos import orbital_density
+from rslmtoasa.config import JobConfig
+from rslmtoasa.models.bulk import BulkSystem
+from rslmtoasa.ops.lanczos import lanczos_coefficients, scalar_start_vectors
+from rslmtoasa.ops.ldos import orbital_density
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_local_axis_rotation_invariance():
     resulting LDOS) must be identical with local_axis on/off."""
     import numpy as np
 
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
+    from rslmtoasa.models.presets import build_synthetic_bcc
 
     sys_ = build_synthetic_bcc(rc=9.0, lld=6, nsp=2)
     a0, b0 = sys_.run_block()
@@ -121,8 +121,8 @@ def test_block_lanczos_split_parity():
     import numpy as np
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-    from rslmtoasa_tpu.ops.block_lanczos import (
+    from rslmtoasa.models.presets import build_synthetic_bcc
+    from rslmtoasa.ops.block_lanczos import (
         block_lanczos,
         block_lanczos_split,
         block_start_vectors,
@@ -145,9 +145,9 @@ def test_chebyshev_split_parity():
     import numpy as np
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.chebyshev import (
+    from rslmtoasa.models.presets import build_synthetic_bcc
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.chebyshev import (
         chebyshev_moments,
         chebyshev_moments_split,
     )
@@ -163,24 +163,3 @@ def test_chebyshev_split_parity():
     m2 = chebyshev_moments_split(hb.ee, hb.lsham, hb.iz, hb.cols, psi0,
                                  5, 1.9, -0.2)
     np.testing.assert_allclose(m2, np.asarray(m1), atol=1e-10)
-
-
-def test_gram_sum_decomposed_branch_matches_fused():
-    """The accelerator (decomposed) gram_sum branch — untested by the
-    CPU suite's backend default — equals the fused CPU contraction
-    (ADVICE r2: the production TPU branch had no CPU-side test)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from rslmtoasa_tpu.ops.block_lanczos import gram_sum
-
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((3, 11, 6, 5)) + 1j * rng.standard_normal(
-        (3, 11, 6, 5))
-    y = rng.standard_normal((3, 11, 6, 4)) + 1j * rng.standard_normal(
-        (3, 11, 6, 4))
-    fused = np.asarray(gram_sum(jnp.asarray(x), jnp.asarray(y),
-                                decomposed=False))
-    dec = np.asarray(gram_sum(jnp.asarray(x), jnp.asarray(y),
-                              decomposed=True))
-    np.testing.assert_allclose(dec, fused, atol=1e-12)

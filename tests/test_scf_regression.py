@@ -11,10 +11,10 @@ import tempfile
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.config import JobConfig
-from rslmtoasa_tpu.models.bulk import BulkSystem
-from rslmtoasa_tpu.models.scf import SelfConsistency
-from rslmtoasa_tpu.utils.namelist import read_namelists
+from rslmtoasa.config import JobConfig
+from rslmtoasa.models.bulk import BulkSystem
+from rslmtoasa.models.scf import SelfConsistency
+from rslmtoasa.utils.namelist import read_namelists
 
 
 @pytest.fixture(scope="module")

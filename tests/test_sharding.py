@@ -3,7 +3,7 @@
 The reference's only distribution axis is atoms/chains with
 allreduce-sum collectives (``source/mpi.f90:32-58``; determinism across
 rank counts is a stated property of its test suite).  These tests assert
-the same property for the TPU layouts: every sharded formulation must
+the same property for the device layouts: every sharded formulation must
 reproduce the single-device result to f64 round-off.
 """
 
@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 @pytest.fixture(scope="module")
 def small_system():
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
+    from rslmtoasa.models.presets import build_synthetic_bcc
 
     sys_ = build_synthetic_bcc(rc=8.0, ndim=2000, lld=6)
     return sys_.ham
@@ -35,11 +35,11 @@ def _padded_rows(hb, n_shards):
 
 
 def test_lanczos_chain_sharded_matches_unsharded(small_system):
-    from rslmtoasa_tpu.ops.lanczos import (
+    from rslmtoasa.ops.lanczos import (
         lanczos_coefficients,
         scalar_start_vectors,
     )
-    from rslmtoasa_tpu.parallel.mesh import lanczos_sharded, make_mesh
+    from rslmtoasa.parallel.mesh import lanczos_sharded, make_mesh
 
     hb = small_system
     mesh = make_mesh(8)
@@ -55,8 +55,8 @@ def test_lanczos_chain_sharded_matches_unsharded(small_system):
 
 
 def test_rowsharded_halo_spmv_matches_dense(small_system):
-    from rslmtoasa_tpu.ops.lanczos import block_spmv
-    from rslmtoasa_tpu.parallel.mesh import make_mesh, rowsharded_spmv_halo
+    from rslmtoasa.ops.lanczos import block_spmv
+    from rslmtoasa.parallel.mesh import make_mesh, rowsharded_spmv_halo
 
     hb = small_system
     mesh = make_mesh(8)
@@ -80,11 +80,11 @@ def test_rowsharded_halo_spmv_matches_dense(small_system):
 
 
 def test_lanczos_rowsharded_matches_unsharded(small_system):
-    from rslmtoasa_tpu.ops.lanczos import (
+    from rslmtoasa.ops.lanczos import (
         lanczos_coefficients,
         scalar_start_vectors,
     )
-    from rslmtoasa_tpu.parallel.mesh import lanczos_rowsharded, make_mesh
+    from rslmtoasa.parallel.mesh import lanczos_rowsharded, make_mesh
 
     hb = small_system
     mesh = make_mesh(8)
@@ -110,7 +110,7 @@ def test_lanczos_rowsharded_matches_unsharded(small_system):
 
 
 def test_total_dos_psum(small_system):
-    from rslmtoasa_tpu.parallel.mesh import make_mesh, total_dos_psum
+    from rslmtoasa.parallel.mesh import make_mesh, total_dos_psum
 
     mesh = make_mesh(8)
     rng = np.random.default_rng(3)
@@ -124,11 +124,11 @@ def test_grid_sharded_block_matches_dense():
     """Grid-sharded ms-conv block recursion (x-slab halo exchange,
     ops/msconv_shard.py) vs the dense engine at 1e-10 — the beyond-HBM
     route for clusters whose single-chain state exceeds one chip."""
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
-    from rslmtoasa_tpu.ops.msconv_shard import block_lanczos_ms_sharded
-    from rslmtoasa_tpu.parallel.mesh import make_mesh
+    from rslmtoasa.models.presets import build_synthetic_bcc
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
+    from rslmtoasa.ops.msconv_shard import block_lanczos_ms_sharded
+    from rslmtoasa.parallel.mesh import make_mesh
 
     lld = 5
     sys_ = build_synthetic_bcc(rc=8.0, lld=lld, nsp=2, hoh=True)
@@ -147,13 +147,13 @@ def test_grid_sharded_block_matches_dense():
 
 @pytest.mark.parametrize("hoh", [False, True])
 def test_grid_sharded_chebyshev_matches_dense(hoh):
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
-    from rslmtoasa_tpu.ops.msconv_shard import (
+    from rslmtoasa.models.presets import build_synthetic_bcc
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
+    from rslmtoasa.ops.msconv_shard import (
         chebyshev_moments_ms_sharded,
     )
-    from rslmtoasa_tpu.parallel.mesh import make_mesh
+    from rslmtoasa.parallel.mesh import make_mesh
 
     lld = 5
     a_s, b_s = 1.9, -0.2
@@ -177,8 +177,8 @@ def _reduced_case_system(reference_dir, case: str, rc: float, hoh: bool):
     import shutil
     import tempfile
 
-    from rslmtoasa_tpu.config import JobConfig
-    from rslmtoasa_tpu.models.bulk import BulkSystem
+    from rslmtoasa.config import JobConfig
+    from rslmtoasa.models.bulk import BulkSystem
 
     src = str(reference_dir / f"tests/scf/cases/{case}")
     wd = tempfile.mkdtemp(prefix="rslmto_shard_")
@@ -200,11 +200,11 @@ def test_grid_sharded_block_surface_matches_dense(reference_dir):
     """Grid-sharded block recursion on a CORRECTED stencil (surface
     per-layer types -> gcorr gather corrections routed to the owning
     x-slab) vs the dense engine at 1e-10 — the beyond-HBM route for
-    surface slabs (VERDICT r4 missing #2)."""
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
-    from rslmtoasa_tpu.ops.msconv_shard import block_lanczos_ms_sharded
-    from rslmtoasa_tpu.parallel.mesh import make_mesh
+    surface slabs."""
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
+    from rslmtoasa.ops.msconv_shard import block_lanczos_ms_sharded
+    from rslmtoasa.parallel.mesh import make_mesh
 
     lld = 5
     sys_ = _reduced_case_system(reference_dir, "surface/fccCu001",
@@ -228,11 +228,11 @@ def test_grid_sharded_block_surface_matches_dense(reference_dir):
 def test_grid_sharded_block_impurity_matches_dense(reference_dir):
     """Grid-sharded block recursion with impurity hall-row local
     corrections (per-atom deltas owned by their x-slab) vs the dense
-    engine at 1e-10 (VERDICT r4 missing #2)."""
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.msconv import MSEngine, build_ms_stencil
-    from rslmtoasa_tpu.ops.msconv_shard import block_lanczos_ms_sharded
-    from rslmtoasa_tpu.parallel.mesh import make_mesh
+    engine at 1e-10."""
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.msconv import MSEngine, build_ms_stencil
+    from rslmtoasa.ops.msconv_shard import block_lanczos_ms_sharded
+    from rslmtoasa.parallel.mesh import make_mesh
 
     lld = 5
     sys_ = _reduced_case_system(reference_dir, "impurity/B2FeCo",
@@ -256,11 +256,12 @@ def test_grid_sharded_block_impurity_matches_dense(reference_dir):
 
 
 def test_grid_shard_gate_engages(monkeypatch):
-    """The dispatch HBM gate routes oversized correction-free clusters
-    to the grid-sharded engine when a mesh exists, and to the gather
-    engine otherwise."""
-    from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-    from rslmtoasa_tpu.parallel import dispatch
+    """The ms engine's memory gate routes oversized correction-free
+    clusters to the grid-sharded engine when a mesh exists, and refuses
+    the engine otherwise."""
+    from rslmtoasa.models.presets import build_synthetic_bcc
+    from rslmtoasa.ops.msconv import ms_engine_for
+    from rslmtoasa.parallel import dispatch
 
     sys_ = build_synthetic_bcc(rc=8.0, lld=4, nsp=2)
     cl, hb = sys_.cluster, sys_.ham
@@ -268,10 +269,10 @@ def test_grid_shard_gate_engages(monkeypatch):
     # with the 8-device mesh: grid-sharded engine
     dispatch._mesh_cache.update(mesh=None, checked=False)
     assert dispatch.get_mesh() is not None
-    eng = dispatch._ms_engine_for(cl, hb.ee, hb.lsham, False, None, None)
+    eng = ms_engine_for(cl, hb.ee, hb.lsham, False, None, None)
     assert eng is not None and eng._grid_shard
     # without a mesh: engine unavailable (gather fallback)
     dispatch._mesh_cache.update(mesh=None, checked=True)
-    eng2 = dispatch._ms_engine_for(cl, hb.ee, hb.lsham, False, None, None)
+    eng2 = ms_engine_for(cl, hb.ee, hb.lsham, False, None, None)
     assert eng2 is None
     dispatch._mesh_cache.update(mesh=None, checked=False)

@@ -10,7 +10,7 @@ matches the analytic two-spin Larmor rate.
 
 import numpy as np
 
-from rslmtoasa_tpu.models.spin_dynamics import (
+from rslmtoasa.models.spin_dynamics import (
     GAMA,
     MTGaussian,
     depondt_evolve_first,

@@ -1,7 +1,7 @@
 """Conv-stencil df64 Lanczos vs the complex128 ELL engine.
 
-The conv engine is the TPU production path for single-site crystals
-(bench + bulk scalar recursion); on CPU the same code runs with f32
+The conv engine is a df64 formulation for single-site crystals that no
+production path selects any more; on CPU it runs with f32
 conv + df64 compensation, so its coefficients must match the exact
 complex128 recursion to the df64 noise floor (~1e-12 on the chain
 coefficients after ~20 steps), far inside the 1e-6 reference gate.
@@ -12,13 +12,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.ops.lanczos import (
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.ops.lanczos import (
     lanczos_coefficients,
     scalar_start_vectors,
     split_complex,
 )
-from rslmtoasa_tpu.ops.stencil_conv import (
+from rslmtoasa.ops.stencil_conv import (
     build_conv_stencil,
     conv_start_vectors,
     lanczos_coefficients_conv_df64,
@@ -72,9 +72,9 @@ def test_conv_chebyshev_matches_block(small_sys):
     chains (chebyshev_recur doubling, recursion.f90:3057-3135)."""
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.chebyshev import chebyshev_moments
-    from rslmtoasa_tpu.ops.stencil_conv import chebyshev_moments_conv_df64
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.chebyshev import chebyshev_moments
+    from rslmtoasa.ops.stencil_conv import chebyshev_moments_conv_df64
 
     sys_ = small_sys
     hb = sys_.ham

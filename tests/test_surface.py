@@ -17,7 +17,7 @@ electrostatics are validated internally:
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.physics.madelung_surf import (
+from rslmtoasa.physics.madelung_surf import (
     SurfaceMadelung,
     build_alelay,
     surfpot,

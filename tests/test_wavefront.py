@@ -7,8 +7,8 @@ engines exactly — the rows it skips are exact zeros."""
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.models.presets import build_synthetic_bcc
-from rslmtoasa_tpu.ops.wavefront import (
+from rslmtoasa.models.presets import build_synthetic_bcc
+from rslmtoasa.ops.wavefront import (
     WavefrontPlan,
     block_lanczos_wavefront,
     hop_distances,
@@ -42,7 +42,7 @@ def test_hop_distances_bfs(bcc):
 def test_scalar_wavefront_matches_dense(bcc):
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.ops.lanczos import (
+    from rslmtoasa.ops.lanczos import (
         lanczos_coefficients,
         scalar_start_vectors,
     )
@@ -68,7 +68,7 @@ def test_scalar_wavefront_matches_dense(bcc):
 def test_block_wavefront_matches_dense(bcc):
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.ops.block_lanczos import (
+    from rslmtoasa.ops.block_lanczos import (
         block_lanczos,
         block_start_vectors,
     )
@@ -95,7 +95,7 @@ def test_block_wavefront_hoh_two_hop(bcc):
     """HoH spreads 2 hops per application — the plan must grow 2x."""
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.ops.block_lanczos import (
+    from rslmtoasa.ops.block_lanczos import (
         block_lanczos,
         block_start_vectors,
     )
@@ -127,9 +127,9 @@ def test_block_wavefront_hoh_two_hop(bcc):
 def test_chebyshev_wavefront_matches_dense(bcc):
     import jax.numpy as jnp
 
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.ops.chebyshev import chebyshev_moments
-    from rslmtoasa_tpu.ops.wavefront import (
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.ops.chebyshev import chebyshev_moments
+    from rslmtoasa.ops.wavefront import (
         chebyshev_moments_wavefront,
         make_plan_chebyshev,
     )
@@ -155,8 +155,8 @@ def test_chebyshev_wavefront_matches_dense(bcc):
 def test_dispatch_uses_wavefront_above_threshold(bcc, monkeypatch):
     """block_lanczos_auto routes through the wavefront plan when the
     cluster is large and the ball is small."""
-    from rslmtoasa_tpu.ops.block_lanczos import block_start_vectors
-    from rslmtoasa_tpu.parallel import dispatch
+    from rslmtoasa.ops.block_lanczos import block_start_vectors
+    from rslmtoasa.parallel import dispatch
 
     hb = bcc.ham
     kk = bcc.cluster.kk

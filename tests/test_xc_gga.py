@@ -9,9 +9,9 @@ gradient functional, and PBE-LDA must stay close to von Barth-Hedin LDA.
 import numpy as np
 import pytest
 
-from rslmtoasa_tpu.atoms.potential import SymbolicAtom
-from rslmtoasa_tpu.physics.atomsphere import atomsc
-from rslmtoasa_tpu.physics.xc_lda import XCFunctional, radgra
+from rslmtoasa.atoms.potential import SymbolicAtom
+from rslmtoasa.physics.atomsphere import atomsc
+from rslmtoasa.physics.xc_lda import XCFunctional, radgra
 
 
 def test_pw92_correlation_values():
@@ -103,9 +103,9 @@ def test_spin_dynamics_smoke(reference_dir):
 
     jax.config.update("jax_platforms", "cpu")
 
-    from rslmtoasa_tpu.config import JobConfig
-    from rslmtoasa_tpu.models.bulk import BulkSystem
-    from rslmtoasa_tpu.models.spin_dynamics import SpinDynamics
+    from rslmtoasa.config import JobConfig
+    from rslmtoasa.models.bulk import BulkSystem
+    from rslmtoasa.models.spin_dynamics import SpinDynamics
 
     case = reference_dir / "tests/regression/bccFe_lanczos"
     for integ in ("euler", "depondt"):
@@ -134,7 +134,7 @@ def test_mt_gaussian_reproducible_and_constrain():
     and the Lagrange constraining field (constrain.f90 i_cons 2/3)."""
     import numpy as np
 
-    from rslmtoasa_tpu.models.spin_dynamics import MTGaussian, constrain_field
+    from rslmtoasa.models.spin_dynamics import MTGaussian, constrain_field
 
     a = MTGaussian(42).standard_normal((3, 5))
     b = MTGaussian(42).standard_normal((3, 5))
